@@ -43,10 +43,10 @@ def main() -> None:
     if not os.path.exists(READS_FA):
         print(f"missing {READS_FA} — see module docstring", file=sys.stderr)
         sys.exit(1)
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.io.batching import read_records
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
+    from blasr_jax.index.artifacts import load_index
+    from blasr_jax.io.batching import read_records
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
 
     index = load_index(GENOME_FA, k=14)
     reads = read_records(READS_FA)
@@ -80,7 +80,7 @@ def main() -> None:
 
     if "--golden" in sys.argv and os.path.exists(REF_BIN):
         ours_m4 = "/tmp/alchemy_ours.m4"
-        from blasr_tpu.output.m4 import write_m4
+        from blasr_jax.output.m4 import write_m4
 
         with open(ours_m4, "w") as f:
             write_m4(records, f)

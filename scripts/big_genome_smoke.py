@@ -4,11 +4,11 @@ import os, sys, time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np
-from blasr_tpu.index.artifacts import build_index_from_arrays, GenomeIndex
-from blasr_tpu.io.seqdb import SeqDB
-from blasr_tpu.params import MappingParams
-from blasr_tpu.pipeline.runner import run_mapping
-from blasr_tpu.sim import simulate_reads, parse_truth
+from blasr_jax.index.artifacts import build_index_from_arrays, GenomeIndex
+from blasr_jax.io.seqdb import SeqDB
+from blasr_jax.params import MappingParams
+from blasr_jax.pipeline.runner import run_mapping
+from blasr_jax.sim import simulate_reads, parse_truth
 
 G = 200_000_000
 rng = np.random.default_rng(3)

@@ -31,12 +31,12 @@ import numpy as np
 def main():
     import jax.numpy as jnp
 
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.io.batching import batch_reads, read_records
-    from blasr_tpu.ops.anchors import find_anchors
-    from blasr_tpu.ops.candidates import anchor_weights, chain_stats, select_candidates
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.mapper import Mapper, _revcomp_rows, unpack_result
+    from blasr_jax.index.artifacts import load_index
+    from blasr_jax.io.batching import batch_reads, read_records
+    from blasr_jax.ops.anchors import find_anchors
+    from blasr_jax.ops.candidates import anchor_weights, chain_stats, select_candidates
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.mapper import Mapper, _revcomp_rows, unpack_result
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     index = load_index(os.path.join(root, "benchdata/genome.fasta"), k=14)

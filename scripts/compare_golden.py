@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Golden-output comparison: blasr_tpu m4 vs reference blasrmc m4.
+"""Golden-output comparison: blasr_jax m4 vs reference blasrmc m4.
 
 Usage: python scripts/compare_golden.py ours.m4 reference.m4
 

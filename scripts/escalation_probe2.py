@@ -21,8 +21,8 @@ READS_FA = os.path.join(BENCH_DIR, "independent_reads.fasta")
 
 
 def run(params, index, reads):
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import parse_truth
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import parse_truth
 
     t0 = time.time()
     records, unmapped = run_mapping(index, reads, params)
@@ -53,9 +53,9 @@ def run(params, index, reads):
 def main() -> None:
     import dataclasses
 
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.io.batching import read_records
-    from blasr_tpu.params import MappingParams
+    from blasr_jax.index.artifacts import load_index
+    from blasr_jax.io.batching import read_records
+    from blasr_jax.params import MappingParams
 
     index = load_index(GENOME_FA, k=14)
     reads = read_records(READS_FA)

@@ -5,8 +5,9 @@ Builds a 3.2 Gb synthetic genome (24 contigs, hg19-like size mix, with
 segmental duplications for repeat realism), shards it 16 ways with
 per-shard SA-IS indexes built by a process pool and cached on disk, then
 serves reads through parallel/sharded.run_mapping_sharded in lazy_load
-mode (one shard's arrays resident in HBM at a time — the 1-chip layout;
-on a 16-chip slice the same cache serves all shards concurrently).
+mode (one shard's arrays resident in device memory at a time — the
+1-card layout; with one card per shard the same cache serves all shards
+concurrently).
 
 The reference REJECTS genomes >4 Gb per index (SAWriter.cpp:176-181) and
 has no sharding at all (SURVEY §2.9); this path is the framework's answer
@@ -17,7 +18,7 @@ Writes measurements to stdout; update BASELINE.md config 5 from them.
 
 Flags (appended anywhere):
   --build-only   stop after the shard-index cache is built (CPU-only; lets
-                 the build run in the background while the chip does other
+                 the build run in the background while the card does other
                  work)
   --routed       serve through read routing (k-mer presence sketches):
                  shards with no routed reads are neither loaded nor run;
@@ -81,7 +82,7 @@ def main():
         genome = make_genome(G, gpath)
     print(f"genome {G/1e9:.2f} Gb ready: {time.time()-t0:.0f}s", flush=True)
 
-    from blasr_tpu.io.seqdb import SeqDB
+    from blasr_jax.io.seqdb import SeqDB
 
     rel = np.array(REL, dtype=np.float64)
     starts = np.concatenate([[0], np.cumsum(rel / rel.sum() * G)]).astype(np.int64)
@@ -90,10 +91,10 @@ def main():
     seqdb = SeqDB(names, starts, ["0" * 32] * 24)
 
     # ---- shard builds (process pool; cached on disk) ----
-    from blasr_tpu.parallel.sharded import (
+    from blasr_jax.parallel.sharded import (
         make_shards, shard_cache_path, run_mapping_sharded,
     )
-    from blasr_tpu.params import MappingParams
+    from blasr_jax.params import MappingParams
 
     params = MappingParams(
         batch_size=64, max_read_len=3072, n_candidates=4, best_n=1,
@@ -110,7 +111,12 @@ def main():
         import multiprocessing as mp
 
         ctx = mp.get_context("spawn")
-        with ctx.Pool(3) as pool:
+        # the SA builders are host work: keep them off the card, which
+        # this process alone uses
+        with ctx.Pool(
+            3, initializer=os.environ.__setitem__,
+            initargs=("JAX_PLATFORMS", "cpu"),
+        ) as pool:
             for s, dt in pool.imap_unordered(
                 _build_one, [(gpath, G, n_shards, overlap, k, s) for s in todo]
             ):
@@ -129,7 +135,7 @@ def main():
         return
 
     # ---- simulate reads and serve ----
-    from blasr_tpu.sim import simulate_reads, parse_truth
+    from blasr_jax.sim import simulate_reads, parse_truth
 
     reads, _ = simulate_reads(genome, n_reads, mean_len=1000, seed=23)
 
@@ -137,11 +143,11 @@ def main():
         # persistent ShardedServer: load every shard index + sketch once,
         # then stream read batches; steady-state per-call reads/s is the
         # serving-daemon figure (VERDICT r2 #5)
-        from blasr_tpu.parallel.sharded import ShardedServer
+        from blasr_jax.parallel.sharded import ShardedServer
 
         t0 = time.time()
-        # one v5e chip: ~2 GB device arrays/shard, 16 GB HBM -> keep at
-        # most 6 shards device-resident between calls
+        # ~2 GB of device arrays per shard: keep at most 6 shards
+        # device-resident between calls
         server = ShardedServer(
             genome, seqdb, params, n_shards=n_shards, k=k,
             genome_path=gpath, route=True, max_resident=6,
@@ -167,7 +173,7 @@ def main():
         routed = "--routed" in flags
         if routed:
             # routing skip-rate preview (sketches cached next to the shards)
-            from blasr_tpu.parallel.sharded import (
+            from blasr_jax.parallel.sharded import (
                 build_shard_sketch, route_reads, sketch_cache_path,
             )
             sketches = []
@@ -220,8 +226,8 @@ def main():
                 np.array_equal(genome[s : s + w], genome[g_start : g_start + w])
             )
             if not dup:
-                from blasr_tpu.oracle import local_affine_score
-                from blasr_tpu.ops.banded_align import AlignScores
+                from blasr_jax.oracle import local_affine_score
+                from blasr_jax.ops.banded_align import AlignScores
 
                 sc_ = AlignScores()
                 probe = rd.codes[:400]
@@ -253,8 +259,8 @@ def _build_one(args):
     gpath, G, n_shards, overlap, k, s = args
     import numpy as np  # noqa: F811
 
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.parallel.sharded import (
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.parallel.sharded import (
         build_shard_index, make_shards, shard_cache_path,
     )
 

@@ -11,7 +11,7 @@ the role of the reference's empirical alchemy models
 (reference simulator/Alchemy.cpp:43+, OutputSampleListSet.h).
 
 Usage:
-  python scripts/independent_validation.py            # ours on TPU, both operating points
+  python scripts/independent_validation.py            # ours, both operating points
   python scripts/independent_validation.py --golden   # also run reference blasrmc + compare
 
 Reference binary expected at /tmp/refbuild/alignment/bin/blasrmc (see
@@ -38,8 +38,8 @@ REF_SAW = "/tmp/refbuild/alignment/bin/sawritermc"
 
 
 def ensure_corpus() -> None:
-    from blasr_tpu.io.fasta import read_fasta, write_fasta
-    from blasr_tpu.sim import ErrorModel, simulate_genome, simulate_reads_alchemy
+    from blasr_jax.io.fasta import read_fasta, write_fasta
+    from blasr_jax.sim import ErrorModel, simulate_genome, simulate_reads_alchemy
 
     os.makedirs(BENCH_DIR, exist_ok=True)
     if not os.path.exists(GENOME_FA):
@@ -56,7 +56,7 @@ def ensure_corpus() -> None:
 
 
 def accuracy_of(records, reads) -> float:
-    from blasr_tpu.sim import parse_truth
+    from blasr_jax.sim import parse_truth
 
     byname = {}
     for r in records:
@@ -76,10 +76,10 @@ def accuracy_of(records, reads) -> float:
 
 
 def run_ours() -> dict:
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.io.batching import read_records
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
+    from blasr_jax.index.artifacts import load_index
+    from blasr_jax.io.batching import read_records
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
 
     index = load_index(GENOME_FA, k=14)
     reads = read_records(READS_FA)
@@ -132,7 +132,7 @@ def main() -> None:
         if ref_m4:
             ours_m4 = os.path.join(BENCH_DIR, "independent_ours.m4")
             subprocess.run(
-                [sys.executable, "-m", "blasr_tpu.cli.blasr", READS_FA,
+                [sys.executable, "-m", "blasr_jax.cli.blasr", READS_FA,
                  GENOME_FA, "-m", "4", "-out", ours_m4, "-bestn", "1"],
                 check=True,
                 cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))

@@ -98,7 +98,7 @@ def block_only_score(blocks, q, t, match=-5, mismatch=6, n_score=0):
 
 
 def main():
-    from blasr_tpu.pipeline.secondary_refine import sdp_interval_align
+    from blasr_jax.pipeline.secondary_refine import sdp_interval_align
 
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 40
     matcher = (

@@ -1,10 +1,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from blasr_tpu.core.encode import revcomp_codes
-from blasr_tpu.index.artifacts import build_index_from_arrays
-from blasr_tpu.io.seqdb import SeqDB
-from blasr_tpu.ops.anchors import find_anchors, pack_query_kmers
+from blasr_jax.core.encode import revcomp_codes
+from blasr_jax.index.artifacts import build_index_from_arrays
+from blasr_jax.io.seqdb import SeqDB
+from blasr_jax.ops.anchors import find_anchors, pack_query_kmers
 
 
 def _make_index(genome, k=8):
@@ -82,7 +82,7 @@ def test_anchor_nhits_is_kmer_frequency(rng):
 
 
 def test_pack_query_kmers_matches_host(rng):
-    from blasr_tpu.core.encode import pack_kmers
+    from blasr_jax.core.encode import pack_kmers
 
     codes = rng.integers(0, 5, size=(3, 64)).astype(np.uint8)
     lengths = np.array([64, 30, 0], dtype=np.int32)
@@ -103,8 +103,8 @@ def test_lut_search_matches_plain(rng):
     """Prefix-LUT-jumpstarted search must equal the full binary search."""
     import jax.numpy as jnp
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
 
     g = rng.integers(0, 4, 30_000).astype(np.uint8)
     seqdb = SeqDB(["r"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -134,9 +134,9 @@ def test_wide_key_anchors_match_bruteforce(rng):
     """k=18 (int64 keys split hi/lo on device) vs a brute-force scan."""
     import jax.numpy as jnp
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.ops.anchors import find_anchors_wide
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.ops.anchors import find_anchors_wide
 
     k = 18
     g = rng.integers(0, 4, 6000).astype(np.uint8)

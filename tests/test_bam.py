@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from blasr_tpu.io.bam import (
+from blasr_jax.io.bam import (
     BGZF_EOF, bgzf_decompress, read_bam, write_bam_from_sam_lines,
 )
 
@@ -11,7 +11,7 @@ HEADER = [
     "@HD\tVN:1.5",
     "@SQ\tSN:chr1\tLN:5000",
     "@SQ\tSN:chr2\tLN:3000",
-    "@PG\tID:blasr_tpu\tCL:test",
+    "@PG\tID:blasr_jax\tCL:test",
 ]
 RECORDS = [
     "r1\t0\tchr1\t101\t60\t10S40M2I30M5D20M\t*\t0\t0\t"
@@ -42,7 +42,7 @@ def test_bam_roundtrip(tmp_path):
 
 
 def test_bam_through_sam_reader(tmp_path):
-    from blasr_tpu.io.sam import read_sam
+    from blasr_jax.io.sam import read_sam
 
     p = str(tmp_path / "b.bam")
     write_bam_from_sam_lines(HEADER, RECORDS, p)
@@ -73,13 +73,13 @@ def test_cli_bam_output(tmp_path):
 
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.output.sam_writer import write_sam
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.batching import Read
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.output.sam_writer import write_sam
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     g = simulate_genome(40_000, seed=61, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -105,7 +105,7 @@ def test_cli_bam_output(tmp_path):
 
 def test_samtom4_reads_bam(tmp_path, capsys):
     """Satellite tools consume .bam through the shared read_sam dispatch."""
-    from blasr_tpu.cli.tools import main as tools_main
+    from blasr_jax.cli.tools import main as tools_main
 
     p = str(tmp_path / "c.bam")
     write_bam_from_sam_lines(HEADER, RECORDS, p)

@@ -2,8 +2,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from blasr_tpu.ops.banded_align import AlignScores, banded_align, make_qoff
-from blasr_tpu.pipeline.traceback import OP_D, OP_I, OP_M, walk_traceback
+from blasr_jax.ops.banded_align import AlignScores, banded_align, make_qoff
+from blasr_jax.pipeline.traceback import OP_D, OP_I, OP_M, walk_traceback
 
 SC = AlignScores()
 BIG = 10**9
@@ -191,7 +191,7 @@ def test_device_walk_matches_host_walk(rng):
     """On-device traceback must reproduce the host replay exactly."""
     import jax.numpy as jnp
 
-    from blasr_tpu.ops.traceback_device import (
+    from blasr_jax.ops.traceback_device import (
         pack_codes_rows,
         packed_width,
         unpack_moves,
@@ -249,13 +249,11 @@ def test_device_walk_matches_host_walk(rng):
 
 def test_score_matrix_substitution():
     """-scoreMatrix role (StringToScoreMatrix.h): a matrix with free A<->C
-    substitutions scores an A->C-mutated read like an exact match, and the
-    Pallas interpret kernel agrees bit-exactly."""
+    substitutions scores an A->C-mutated read like an exact match."""
     import numpy as np
     import jax.numpy as jnp
 
-    from blasr_tpu.ops.banded_align import AlignScores, banded_align, make_qoff
-    from blasr_tpu.ops.banded_pallas import banded_align_pallas
+    from blasr_jax.ops.banded_align import AlignScores, banded_align, make_qoff
 
     rng = np.random.default_rng(3)
     L, T = 200, 260
@@ -288,11 +286,6 @@ def test_score_matrix_substitution():
     ref = banded_align(*args, None, scores=scores, with_traceback=True)
     # every position scores -5 (match or free A/C sub): perfect-score result
     assert np.all(np.asarray(ref.score) == -5 * L)
-    got = banded_align_pallas(
-        *args, None, scores=scores, with_traceback=True, interpret=True
-    )
-    np.testing.assert_array_equal(np.asarray(ref.score), np.asarray(got.score))
-    np.testing.assert_array_equal(np.asarray(ref.arrows), np.asarray(got.arrows))
 
 
 def test_walk_stats_with_negative_offdiagonal_matrix():
@@ -301,7 +294,7 @@ def test_walk_stats_with_negative_offdiagonal_matrix():
     n_match/n_mismatch exact (review fix)."""
     import numpy as np
 
-    from blasr_tpu.ops.traceback_device import walk_arrows_device
+    from blasr_jax.ops.traceback_device import walk_arrows_device
 
     # A<->C substitution scores -2 (negative off-diagonal)
     mat = [
@@ -331,8 +324,8 @@ def test_walk_stats_with_negative_offdiagonal_matrix():
         res.arrows, qoff, res.best_a, res.best_w,
         jnp.minimum(res.score, -1), jnp.asarray(Q), jnp.asarray(Tc),
     )
-    from blasr_tpu.ops.traceback_device import pack_codes_rows, packed_width
-    from blasr_tpu.ops.traceback_device import unpack_moves
+    from blasr_jax.ops.traceback_device import pack_codes_rows, packed_width
+    from blasr_jax.ops.traceback_device import unpack_moves
 
     S = L + T - 1
     packed = np.asarray(pack_codes_rows(tb.moves_codes, tb.nops, packed_width(S)))
@@ -370,7 +363,7 @@ def test_mismatch_start_run_not_double_counted():
     tally the start mismatch exactly once."""
     import numpy as np
 
-    from blasr_tpu.ops.traceback_device import walk_arrows_device
+    from blasr_jax.ops.traceback_device import walk_arrows_device
 
     mat = [
         -5, -2, 6, 6, 0,
@@ -404,13 +397,11 @@ def test_mismatch_start_run_not_double_counted():
 
 
 def test_fuzz_kernel_configs_vs_bruteforce():
-    """Randomized differential test: XLA scan kernel == Pallas interpret
-    kernel bit-exactly, and the best score == brute-force unbanded local
-    DP whenever the band covers the full rectangle."""
+    """Randomized differential test: the best score == brute-force
+    unbanded local DP whenever the band covers the full rectangle."""
     import numpy as np
 
-    from blasr_tpu.oracle import local_affine_score
-    from blasr_tpu.ops.banded_pallas import banded_align_pallas
+    from blasr_jax.oracle import local_affine_score
 
     rng = np.random.default_rng(77)
     for trial in range(12):
@@ -434,22 +425,6 @@ def test_fuzz_kernel_configs_vs_bruteforce():
         )
         ref = banded_align(*args, None, scores=sc, with_traceback=True,
                            band_width=W)
-        got = banded_align_pallas(*args, None, scores=sc,
-                                  with_traceback=True, band_width=W,
-                                  interpret=True)
-        np.testing.assert_array_equal(np.asarray(ref.score), np.asarray(got.score), err_msg=f"trial {trial}")
-        np.testing.assert_array_equal(np.asarray(ref.best_a), np.asarray(got.best_a), err_msg=f"trial {trial}")
-        ga = np.asarray(got.arrows)
-        P = 128 // W if W < 128 else 1
-        if P > 1:
-            # packed layout: lane = P*w + (item % P); de-interleave
-            S_, R_, LW_ = ga.shape
-            ga = (
-                ga.reshape(S_, R_, W, P)
-                .transpose(0, 1, 3, 2)
-                .reshape(S_, R_ * P, W)[:, : ref.arrows.shape[1]]
-            )
-        np.testing.assert_array_equal(np.asarray(ref.arrows), ga, err_msg=f"trial {trial}")
         if W >= L and W >= T:
             # full-rectangle band: banded == unbanded brute force
             for i in range(I):
@@ -465,7 +440,7 @@ def test_global_in_query_score_vs_bruteforce():
     import numpy as np
     import jax.numpy as jnp
 
-    from blasr_tpu.ops.banded_align import AlignScores, banded_align, make_qoff
+    from blasr_jax.ops.banded_align import AlignScores, banded_align, make_qoff
 
     rng = np.random.default_rng(5)
     sc = AlignScores(match=-5, mismatch=6, insertion=5, deletion=5,
@@ -513,3 +488,150 @@ def test_global_in_query_score_vs_bruteforce():
         )
         want = brute(q[0], t[0])
         assert int(res.score[0]) == want, (trial, int(res.score[0]), want)
+
+
+OFFDIAG_MATRIX = (
+    -5, -2, 6, 6, 0,
+    -2, -5, 6, 6, 0,
+    6, 6, -5, 6, 0,
+    6, 6, 6, -5, 0,
+    0, 0, 0, 0, 0,
+)
+
+
+def _drifting_problem(rng, I, L, T):
+    """Noisy copies of target segments with an indel burst, so the path
+    drifts across a band narrower than the query."""
+    Q = np.full((I, L), 4, np.uint8)
+    Tc = rng.integers(0, 4, (I, T)).astype(np.uint8)
+    qlen = np.zeros(I, np.int32)
+    for i in range(I):
+        seg = Tc[i, 24 : 24 + L - 8].copy()
+        cut = len(seg) // 2
+        if i % 2:
+            seg = np.concatenate([seg[:cut], seg[cut + 10 :]])       # deletion
+        else:
+            seg = np.concatenate(
+                [seg[:cut], rng.integers(0, 4, 10).astype(np.uint8), seg[cut:]]
+            )[: L - 2]                                               # insertion
+        mut = rng.random(len(seg)) < 0.06
+        seg[mut] = (seg[mut] + rng.integers(1, 4, int(mut.sum()))) % 4
+        Q[i, : len(seg)] = seg
+        qlen[i] = len(seg)
+    return Q, Tc, qlen
+
+
+def _schedule(mode, L, T, W, I):
+    from blasr_jax.ops.banded_align import (
+        QOFF_SHIFT, clamp_knots_to_shared, make_qoff_knots, make_qoff_num,
+        qoff_from_knots,
+    )
+
+    S = L + T - 1
+    diag = (T - L) // 2
+    shared = jnp.asarray(make_qoff(L, T, W, diag))
+    if mode == "sloped":
+        return make_qoff_num(L, T, W, diag, round((1 << QOFF_SHIFT) / 1.92))
+    if mode != "knots":
+        return shared
+    # per-item guides through three anchors along each item's own drift
+    aq = np.tile(np.array([[8, L // 2 - 8, L - 24]], np.int32), (I, 1))
+    drift = np.array([[0, 0, (-1) ** i * 10] for i in range(I)], np.int32)
+    at = aq + 24 + drift
+    knots = make_qoff_knots(
+        jnp.asarray(aq + at), jnp.asarray(aq - W // 2),
+        jnp.ones((I, 3), bool), S, L, W, diag=diag,
+        num=1 << (QOFF_SHIFT - 1),
+    )
+    return qoff_from_knots(clamp_knots_to_shared(knots, shared, W), S)
+
+
+@pytest.mark.parametrize("W", [32, 64, 128, 256])
+@pytest.mark.parametrize(
+    "mode", ["shared", "sloped", "knots", "qual8", "qual16", "matrix"]
+)
+def test_banded_align_vs_banded_bruteforce(mode, W):
+    """banded_align == the cell-by-cell banded oracle (score and end cell)
+    for every schedule, quality stream and scoring mode the mapper uses,
+    with a band narrower than the query so the schedule matters."""
+    from blasr_jax.oracle import banded_local_affine
+
+    rng = np.random.default_rng(W + len(mode))
+    I, L = 3, W + 48
+    T = L + 64
+    Q, Tc, qlen = _drifting_problem(rng, I, L, T)
+    qoff = _schedule(mode, L, T, W, I)
+    qual = None
+    if mode == "qual8":
+        qual = rng.integers(3, 45, (I, L)).astype(np.uint8)
+    elif mode == "qual16":
+        qual = rng.integers(3, 45, (I, L)).astype(np.uint16) | (
+            rng.integers(3, 45, (I, L)).astype(np.uint16) << 8
+        )
+    sc = AlignScores(matrix=OFFDIAG_MATRIX if mode == "matrix" else None)
+    tlo = np.array([0, 5, 0], np.int32)
+    thi = np.array([T, T, T - 7], np.int32)
+    res = banded_align(
+        jnp.asarray(Q), jnp.asarray(qlen), jnp.asarray(Tc),
+        jnp.asarray(tlo), jnp.asarray(thi), qoff,
+        None if qual is None else jnp.asarray(qual),
+        scores=sc, with_traceback=True, band_width=W,
+    )
+    qo = np.asarray(qoff)
+    for i in range(I):
+        want = banded_local_affine(
+            Q[i, : qlen[i]], Tc[i], sc, qo if qo.ndim == 1 else qo[:, i], W,
+            None if qual is None else qual[i, : qlen[i]],
+            tlo=int(tlo[i]), thi=int(thi[i]),
+        )
+        got = (int(res.score[i]), int(res.best_a[i]), int(res.best_w[i]))
+        assert got == want, (i, got, want)
+        assert want[0] < -100, "the problem must hold a real alignment"
+
+
+def test_device_walk_narrow_sloped_band():
+    """The device walk over (S, I, W) arrows at W = 32 under a drift-slope
+    schedule: the table-driven walk, the walk that evaluates the schedule
+    analytically (the mapper's form) and the host replay agree."""
+    from blasr_jax.ops.banded_align import QOFF_SHIFT, make_qoff_num
+    from blasr_jax.ops.traceback_device import (
+        pack_codes_rows, packed_width, unpack_moves, walk_arrows_device,
+    )
+
+    rng = np.random.default_rng(32)
+    I, W, L = 6, 32, 160
+    T = L + 64
+    Q, Tc, qlen = _drifting_problem(rng, I, L, T)
+    diag = (T - L) // 2
+    num = jnp.int32(round((1 << QOFF_SHIFT) / 1.96))
+    qoff = make_qoff_num(L, T, W, diag, num)
+    res = banded_align(
+        jnp.asarray(Q), jnp.asarray(qlen), jnp.asarray(Tc),
+        jnp.zeros(I, jnp.int32), jnp.full(I, T, jnp.int32), qoff,
+        with_traceback=True, band_width=W,
+    )
+    args = (res.arrows, qoff, res.best_a, res.best_w, res.score,
+            jnp.asarray(Q), jnp.asarray(Tc))
+    table = walk_arrows_device(*args)
+    analytic = walk_arrows_device(*args, qoff_params=(diag, W, L), qoff_num=num)
+    for f in table._fields:
+        np.testing.assert_array_equal(
+            np.asarray(getattr(table, f)), np.asarray(getattr(analytic, f)),
+            err_msg=f,
+        )
+    host = walk_traceback(
+        np.asarray(res.arrows), np.asarray(qoff), np.asarray(res.best_a),
+        np.asarray(res.best_w), np.asarray(res.score), Q, Tc,
+    )
+    packed = np.asarray(
+        pack_codes_rows(table.moves_codes, table.nops, packed_width(L + T - 1))
+    )
+    for i, hp in enumerate(host):
+        assert hp is not None
+        np.testing.assert_array_equal(
+            unpack_moves(packed[i], int(table.nops[i])), hp.ops
+        )
+        assert (int(table.q_start[i]), int(table.t_start[i])) == (
+            hp.q_start, hp.t_start
+        )
+        assert replay_score(hp, Q[i], Tc[i], SC) == int(res.score[i])

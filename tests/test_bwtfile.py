@@ -4,7 +4,7 @@ import os
 
 import numpy as np
 
-from blasr_tpu.index.bwtfile import read_ref_bwt, ref_bwt_genome_matches
+from blasr_jax.index.bwtfile import read_ref_bwt, ref_bwt_genome_matches
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -24,8 +24,8 @@ def test_golden_ref_bwt_inverts_to_genome():
 
 def test_ref_bwt_feeds_fm_serving():
     """A reference .bwt is enough to build and query our FM index."""
-    from blasr_tpu.index.fm import build_fm_index, count_host, locate_host
-    from blasr_tpu.index.suffix_array import build_suffix_array
+    from blasr_jax.index.fm import build_fm_index, count_host, locate_host
+    from blasr_jax.index.suffix_array import build_suffix_array
 
     genome = read_ref_bwt(os.path.join(DATA, "ref_golden.bwt"))
     fm = build_fm_index(genome, build_suffix_array(genome))

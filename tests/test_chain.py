@@ -28,7 +28,7 @@ def brute_chain(t, q, valid, dstar, win, k):
 def test_chain_stats_matches_bruteforce(seed):
     import jax.numpy as jnp
 
-    from blasr_tpu.ops.candidates import chain_stats
+    from blasr_jax.ops.candidates import chain_stats
 
     rng = np.random.default_rng(seed)
     B, A, C, k, win = 5, 40, 3, 14, 128
@@ -67,7 +67,7 @@ def test_chain_gate_rejects_scattered_window():
     order) must fail the admission gate; a true two-anchor chain passes."""
     import jax.numpy as jnp
 
-    from blasr_tpu.ops.candidates import chain_stats
+    from blasr_jax.ops.candidates import chain_stats
 
     k, win = 14, 128
     # row 0: q 0 -> t 100, q 50 -> t 60 (t regresses): no chain
@@ -88,7 +88,7 @@ def test_chain_gate_rejects_scattered_window():
 def test_invalid_candidate_has_no_chain():
     import jax.numpy as jnp
 
-    from blasr_tpu.ops.candidates import chain_stats
+    from blasr_jax.ops.candidates import chain_stats
 
     t = jnp.asarray([[100, 150]], jnp.int32)
     q = jnp.asarray([[0, 50]], jnp.int32)
@@ -108,7 +108,7 @@ def test_mass_is_union_of_member_intervals():
     import jax.numpy as jnp
     import numpy as np
 
-    from blasr_tpu.ops.candidates import chain_stats
+    from blasr_jax.ops.candidates import chain_stats
 
     rng = np.random.default_rng(7)
     B, A, C, k, win = 4, 24, 2, 14, 128
@@ -141,11 +141,11 @@ def test_min_interval_gate_rejects_bare_repeat_window(sim_factory=None):
     emit records from them (the -bestn junk-secondary class)."""
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.batching import Read
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
 
     rng = np.random.default_rng(11)
     G = 60_000
@@ -176,7 +176,7 @@ def test_global_chain_exact_vs_bruteforce():
 
     import numpy as np
 
-    from blasr_tpu.ops.candidates import global_chain_exact
+    from blasr_jax.ops.candidates import global_chain_exact
 
     rng = np.random.default_rng(3)
     for trial in range(40):
@@ -213,7 +213,7 @@ def test_chain_weight_device_matches_exact_oracle():
     import numpy as np
     import jax.numpy as jnp
 
-    from blasr_tpu.ops.candidates import (
+    from blasr_jax.ops.candidates import (
         chain_weight_device, global_chain_exact,
     )
 

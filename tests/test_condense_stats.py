@@ -2,10 +2,10 @@
 
 import numpy as np
 
-from blasr_tpu.core.condense import (
+from blasr_jax.core.condense import (
     condense, condensed_to_original, expand, original_to_condensed,
 )
-from blasr_tpu.statistics import anchor_stddev, anchor_zscore, expected_anchors
+from blasr_jax.statistics import anchor_stddev, anchor_zscore, expected_anchors
 
 
 def test_condense_roundtrip():

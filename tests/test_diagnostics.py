@@ -4,9 +4,9 @@ header, MapBySuffixArray.h:77-85 lcp widths)."""
 
 import numpy as np
 
-from blasr_tpu.cli.blasr import main as blasr_main
-from blasr_tpu.io.fasta import write_fasta
-from blasr_tpu.sim import simulate_genome, simulate_reads
+from blasr_jax.cli.blasr import main as blasr_main
+from blasr_jax.io.fasta import write_fasta
+from blasr_jax.sim import simulate_genome, simulate_reads
 
 
 def _corpus(tmp_path, n=12):

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from blasr_tpu.core.encode import revcomp_codes
-from blasr_tpu.index.artifacts import build_index_from_arrays
-from blasr_tpu.io.batching import Read
-from blasr_tpu.io.seqdb import SeqDB
-from blasr_tpu.params import MappingParams
-from blasr_tpu.pipeline.runner import run_mapping
+from blasr_jax.core.encode import revcomp_codes
+from blasr_jax.index.artifacts import build_index_from_arrays
+from blasr_jax.io.batching import Read
+from blasr_jax.io.seqdb import SeqDB
+from blasr_jax.params import MappingParams
+from blasr_jax.pipeline.runner import run_mapping
 from tests.conftest import mutate_read
 
 
@@ -67,7 +67,7 @@ def test_e2e_accuracy(sim):
 def test_e2e_m4_output(sim, tmp_path):
     import io
 
-    from blasr_tpu.output.m4 import format_m4, write_m4
+    from blasr_jax.output.m4 import format_m4, write_m4
 
     index, reads, truth = sim
     params = MappingParams(batch_size=16, max_read_len=1024, n_candidates=4, best_n=1)
@@ -119,9 +119,9 @@ def test_inverted_repeat_mapqv_low():
     """A read present both forward and reverse-complemented in the genome
     must get a LOW mapQV (regression: RC competitors' q-spans were compared
     in RC coordinates and never overlapped the winner)."""
-    from blasr_tpu.core.encode import revcomp_codes
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
+    from blasr_jax.core.encode import revcomp_codes
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
 
     rng = np.random.default_rng(123)
     unit = rng.integers(0, 4, 800).astype(np.uint8)
@@ -148,7 +148,7 @@ def test_inverted_repeat_mapqv_low():
 def test_e2e_wide_keys_k18(sim):
     """Full pipeline with k=18 wide keys maps to the same loci as k=14."""
     index14, reads, truth = sim
-    from blasr_tpu.index.artifacts import build_index_from_arrays
+    from blasr_jax.index.artifacts import build_index_from_arrays
 
     index18 = build_index_from_arrays(
         index14.genome, index14.seqdb, k=18
@@ -184,12 +184,12 @@ def test_bestn_no_contained_duplicates():
     Blasr.cpp:2081-2161)."""
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.batching import Read
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome
 
     g = simulate_genome(40_000, seed=9, repeat_fraction=0.0)
     # plant an exact tandem repeat so multiple candidates hit both copies
@@ -216,7 +216,7 @@ def test_e2e_direct_lut_identical(sim):
     """direct_lut=True (full-resolution 4^k table) must produce records
     identical to the bisection path — same anchors contract, two-gather
     lookup (ops/anchors.py direct branch)."""
-    from blasr_tpu.output.m4 import format_m4
+    from blasr_jax.output.m4 import format_m4
 
     index14, reads, truth = sim
     # k=10 keeps the 4^k table at 4 MB for the CPU suite
@@ -271,9 +271,9 @@ def test_long_tail_flags(tmp_path, capsys):
     -minMapQV / -match/-mismatch / -maxReadIndex; compat flags accepted."""
     import numpy as np
 
-    from blasr_tpu.cli.blasr import build_arg_parser, params_from_args
-    from blasr_tpu.io.fasta import write_fasta
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.cli.blasr import build_arg_parser, params_from_args
+    from blasr_jax.io.fasta import write_fasta
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     p = build_arg_parser()
     a = p.parse_args([
@@ -290,11 +290,11 @@ def test_long_tail_flags(tmp_path, capsys):
     assert params.best_n == 1  # -printOnlyBest wins
 
     # forwardOnly end-to-end: RC-strand reads go unmapped
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import parse_truth
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import parse_truth
 
     g = simulate_genome(50_000, seed=81, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -321,11 +321,11 @@ def test_narrow_band_tracks_deletion_heavy_reads():
     insertion bias) must map just as accurately under the narrow band."""
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import parse_truth, simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import parse_truth, simulate_genome, simulate_reads
 
     g = simulate_genome(200_000, seed=95, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -364,11 +364,11 @@ def test_narrow_band_mixed_slope_batch():
     locus."""
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import parse_truth, simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import parse_truth, simulate_genome, simulate_reads
 
     g = simulate_genome(200_000, seed=97, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -415,11 +415,11 @@ def test_long_read_bursty_insertions_band_scales():
     band mis-started 2.5-3 kb reads by 100-300 bp."""
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import (ErrorModel, parse_truth, simulate_genome,
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import (ErrorModel, parse_truth, simulate_genome,
                                simulate_reads_alchemy)
 
     g = simulate_genome(150_000, seed=41, repeat_fraction=0.0)
@@ -457,11 +457,11 @@ def test_long_read_bursty_insertions_guided_band():
     must still place every read exactly (GuidedAlign.h:104 role)."""
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import (ErrorModel, parse_truth, simulate_genome,
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import (ErrorModel, parse_truth, simulate_genome,
                                simulate_reads_alchemy)
 
     g = simulate_genome(150_000, seed=41, repeat_fraction=0.0)
@@ -497,8 +497,8 @@ def test_band_escalation_rescues_narrow_band_clipping():
     serving point), a read with a long insertion burst aligns as
     low-identity mush inside the narrow band (the trigger signature; on
     the repeat-bearing bench genome the same mush loses to decoy loci —
-    scripts/escalation_probe2.py measured 40 misplacements, 29/30 rescued
-    on TPU). The retry must fire on the <80% similarity signature,
+    scripts/escalation_probe2.py measured 40 misplacements, 29/30 rescued).
+    The retry must fire on the <80% similarity signature,
     re-map through the per-item guided wide band, and replace the record
     with a strictly better-scoring, high-identity alignment at the exact
     locus."""
@@ -506,14 +506,14 @@ def test_band_escalation_rescues_narrow_band_clipping():
 
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import (ErrorModel, parse_truth, simulate_genome,
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import (ErrorModel, parse_truth, simulate_genome,
                                simulate_reads_alchemy)
 
-    from blasr_tpu.io.batching import Read
+    from blasr_jax.io.batching import Read
 
     g = simulate_genome(150_000, seed=41, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -584,12 +584,12 @@ def test_chunked_guided_narrow_band_holds_burst_reads():
 
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import (ErrorModel, parse_truth, simulate_genome,
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.batching import Read
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import (ErrorModel, parse_truth, simulate_genome,
                                simulate_reads_alchemy)
 
     g = simulate_genome(150_000, seed=41, repeat_fraction=0.0)
@@ -642,12 +642,12 @@ def test_adaptive_cd_identical_records():
 
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.output.m4 import format_m4
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.output.m4 import format_m4
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     g = simulate_genome(120_000, seed=9, repeat_fraction=0.25)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -674,12 +674,12 @@ def test_emit_moves_off_same_m4_records():
 
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.output.m4 import format_m4
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.output.m4 import format_m4
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     g = simulate_genome(80_000, seed=5, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -702,12 +702,12 @@ def test_min_avg_qual_filter():
     (Blasr.cpp:3327-3343 role)."""
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.batching import Read
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome
 
     g = simulate_genome(30_000, seed=42, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -729,11 +729,11 @@ def test_output_invariant_to_batch_size():
     covering band yields the same optimal path (scores bit-equal)."""
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     g = simulate_genome(100_000, seed=51, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -756,10 +756,10 @@ def test_cli_sam_and_bam_outputs(tmp_path):
     -sam CLI run)."""
     import numpy as np
 
-    from blasr_tpu.cli.blasr import main as blasr_main
-    from blasr_tpu.io.bam import read_bam
-    from blasr_tpu.io.fasta import write_fasta
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.cli.blasr import main as blasr_main
+    from blasr_jax.io.bam import read_bam
+    from blasr_jax.io.fasta import write_fasta
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     g = simulate_genome(50_000, seed=71)
     gp = str(tmp_path / "g.fa")
@@ -793,12 +793,12 @@ def test_rc_strand_score_tie_picks_rc_space_start():
     40 round-3 golden divergences — keep it pinned."""
     import numpy as np
 
-    from blasr_tpu.core.encode import revcomp_codes
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
+    from blasr_jax.core.encode import revcomp_codes
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.batching import Read
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
 
     rng = np.random.default_rng(17)
     G = 60_000
@@ -833,12 +833,12 @@ def test_exact_chain_ranking_e2e():
 
     import numpy as np
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.output.m4 import format_m4
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.output.m4 import format_m4
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     g = simulate_genome(100_000, seed=3, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])

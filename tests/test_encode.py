@@ -1,6 +1,6 @@
 import numpy as np
 
-from blasr_tpu.core.encode import (
+from blasr_jax.core.encode import (
     CODE_N,
     codes_to_seq,
     pack_kmers,
@@ -43,7 +43,7 @@ def test_pack_kmers_n_invalid():
 
 def test_pack_kmers_sorted_under_suffix_order():
     # packed keys of suffixes in suffix-array order must be ascending
-    from blasr_tpu.index.suffix_array import build_suffix_array
+    from blasr_jax.index.suffix_array import build_suffix_array
 
     rng = np.random.default_rng(0)
     codes = rng.integers(0, 4, size=500).astype(np.uint8)

@@ -4,11 +4,11 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from blasr_tpu.index.fm import (
+from blasr_jax.index.fm import (
     SAMPLE_D, build_fm_index, count_host, locate_host,
 )
-from blasr_tpu.index.suffix_array import build_suffix_array
-from blasr_tpu.ops.fm_search import find_anchors_fm, fm_count_kmers, fm_locate
+from blasr_jax.index.suffix_array import build_suffix_array
+from blasr_jax.ops.fm_search import find_anchors_fm, fm_count_kmers, fm_locate
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +80,7 @@ def test_device_locate_matches_host(fm_setup):
 
 def test_fm_anchors_match_sa_anchors(fm_setup):
     """FM anchor search must find the same (t, q) hit set as the SA path."""
-    from blasr_tpu.ops.anchors import find_anchors
+    from blasr_jax.ops.anchors import find_anchors
 
     g, sa, fm = fm_setup
     rng = np.random.default_rng(4)
@@ -94,7 +94,7 @@ def test_fm_anchors_match_sa_anchors(fm_setup):
     pos_ok = np.ones(len(g), bool)
 
     # SA path needs its own artifacts (N -> A projection + packed keys)
-    from blasr_tpu.core.encode import pack_kmers
+    from blasr_jax.core.encode import pack_kmers
 
     proj = (g & 3).astype(np.uint8)
     sa_p = build_suffix_array(proj)
@@ -121,12 +121,12 @@ def test_fm_anchors_match_sa_anchors(fm_setup):
 
 def test_e2e_mapping_with_fm_matches_sa(tmp_path):
     """Full pipeline with -bwt anchoring must produce the same records."""
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.batching import Read
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     g = simulate_genome(50_000, seed=9, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -177,7 +177,7 @@ def test_fm_reconstruct_roundtrip():
     """BWT inversion: genome + full SA recovered from the FM bundle alone
     (completeness property behind reference bwt2sa,
     bwtutils/BwtToSuffixArray.cpp:24-28)."""
-    from blasr_tpu.index.fm import build_fm_index, fm_reconstruct
+    from blasr_jax.index.fm import build_fm_index, fm_reconstruct
 
     rng = np.random.default_rng(9)
     g = rng.integers(0, 4, 4097).astype(np.uint8)  # crosses ROW boundaries
@@ -190,10 +190,10 @@ def test_fm_reconstruct_roundtrip():
 
 
 def test_bwt2sa_and_locatelist_cli(tmp_path, capsys):
-    from blasr_tpu.cli.bwtutils import main
-    from blasr_tpu.index.fm import build_fm_index
-    from blasr_tpu.index.safile import read_sa_file
-    from blasr_tpu.io.fasta import write_fasta
+    from blasr_jax.cli.bwtutils import main
+    from blasr_jax.index.fm import build_fm_index
+    from blasr_jax.index.safile import read_sa_file
+    from blasr_jax.io.fasta import write_fasta
 
     rng = np.random.default_rng(12)
     g = rng.integers(0, 4, 3000).astype(np.uint8)
@@ -226,10 +226,10 @@ def test_fm_occ_bitmask_rank_matches_row_gather():
     import numpy as np
     import jax.numpy as jnp
 
-    from blasr_tpu.index.fm import ROW, build_fm_index
-    from blasr_tpu.index.suffix_array import build_suffix_array
-    from blasr_tpu.ops.fm_search import build_bit_masks, fm_occ
-    from blasr_tpu.sim import simulate_genome
+    from blasr_jax.index.fm import ROW, build_fm_index
+    from blasr_jax.index.suffix_array import build_suffix_array
+    from blasr_jax.ops.fm_search import build_bit_masks, fm_occ
+    from blasr_jax.sim import simulate_genome
 
     g = simulate_genome(5_000, seed=13)
     fm = build_fm_index(g, build_suffix_array(g))
@@ -254,8 +254,8 @@ def test_fm_anchor_stride_matches_sa_sets():
     """find_anchors_fm(anchor_stride=4) must anchor the same strided
     position set as the SA path (the serving pipeline passes the same
     stride to both engines)."""
-    from blasr_tpu.core.encode import pack_kmers
-    from blasr_tpu.ops.anchors import find_anchors
+    from blasr_jax.core.encode import pack_kmers
+    from blasr_jax.ops.anchors import find_anchors
 
     rng = np.random.default_rng(21)
     k, B = 12, 6

@@ -3,8 +3,8 @@ oracle, plus model sanity (FullQVAlign.h contract)."""
 
 import numpy as np
 
-from blasr_tpu.io.batching import Read
-from blasr_tpu.ops.fullqv import _tracks, fullqv_align
+from blasr_jax.io.batching import Read
+from blasr_jax.ops.fullqv import _tracks, fullqv_align
 
 
 def _cell_oracle(query, target):

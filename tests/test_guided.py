@@ -6,7 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blasr_tpu.ops.banded_align import (
+from blasr_jax.ops.banded_align import (
     KNOT_SPACING,
     AlignScores,
     banded_align,
@@ -158,7 +158,7 @@ def test_guided_band_recovers_bursty_alignment(rng):
 def test_walk_knots_matches_table_walk(rng):
     """The knot-walk (per-item lerp) must reproduce the table walk when all
     items share the schedule."""
-    from blasr_tpu.ops.traceback_device import walk_arrows_device
+    from blasr_jax.ops.traceback_device import walk_arrows_device
 
     I, L, W = 4, 256, 64
     pad2 = 64
@@ -204,177 +204,4 @@ def test_walk_knots_matches_table_walk(rng):
         np.testing.assert_array_equal(
             np.asarray(getattr(tb_knots, f)),
             np.asarray(getattr(tb_table, f)), err_msg=f,
-        )
-
-
-def test_guided_pallas_interpret_matches_oracle(rng):
-    """Guided Pallas kernel (per-item knot schedules, 4-block fetch,
-    bit-decomposed per-item rolls) must be bit-equal to the (S, I) oracle,
-    arrows included (interpret mode on CPU)."""
-    from blasr_tpu.ops.banded_align import clamp_knots_to_shared, make_qoff
-    from blasr_tpu.ops.banded_pallas import banded_align_pallas
-
-    I, W = 6, 128
-    L = 512
-    pad2 = 128
-    T = L + 2 * pad2
-    S = L + T - 1
-    Q = np.full((I, L), 4, np.uint8)
-    Tc = np.full((I, T), 5, np.uint8)
-    qlen = np.zeros(I, np.int32)
-    aq_all = np.zeros((I, 8), np.int32)
-    at_all = np.zeros((I, 8), np.int32)
-    msk = np.zeros((I, 8), bool)
-    for i in range(I):
-        # reads with differing indel drift, incl. a burst
-        tpl = rng.integers(0, 4, 400).astype(np.uint8)
-        if i % 3 == 0:
-            q = np.concatenate([tpl[:200], rng.integers(0, 4, 60).astype(np.uint8), tpl[200:]])
-        elif i % 3 == 1:
-            q = np.concatenate([tpl[:150], tpl[210:]])     # 60-base deletion
-        else:
-            q = tpl.copy()
-        q = _mutate(rng, q, 0.04)
-        Q[i, : len(q)] = q
-        qlen[i] = len(q)
-        Tc[i, pad2 : pad2 + 400] = tpl
-        Tc[i, :pad2] = rng.integers(0, 4, pad2)
-        Tc[i, pad2 + 400 :] = rng.integers(0, 4, T - pad2 - 400)
-        # a handful of true-path anchors
-        for k in range(8):
-            p = 40 * k + 10
-            qp = p
-            if i % 3 == 0 and p >= 200:
-                qp = p + 60
-            elif i % 3 == 1 and p >= 150:
-                if p < 210:
-                    continue
-                qp = p - 60
-            aq_all[i, k] = qp
-            at_all[i, k] = pad2 + p
-            msk[i, k] = True
-    qoff_shared = make_qoff(L, T, W, pad2)
-    knots = make_qoff_knots(
-        jnp.asarray(aq_all + at_all), jnp.asarray(aq_all - W // 2),
-        jnp.asarray(msk), S, L, W, diag=pad2, num=QOFF_NUM_HALF,
-    )
-    knots = clamp_knots_to_shared(knots, jnp.asarray(qoff_shared), W)
-    qoff2 = qoff_from_knots(knots, S)
-    r_o = banded_align(
-        jnp.asarray(Q), jnp.asarray(qlen), jnp.asarray(Tc),
-        jnp.zeros(I, jnp.int32), jnp.full(I, T, jnp.int32), qoff2,
-        scores=SC, with_traceback=True, band_width=W,
-    )
-    r_p = banded_align_pallas(
-        jnp.asarray(Q), jnp.asarray(qlen), jnp.asarray(Tc),
-        jnp.zeros(I, jnp.int32), jnp.full(I, T, jnp.int32),
-        jnp.asarray(qoff_shared),
-        scores=SC, with_traceback=True, band_width=W, interpret=True,
-        qoff_knots=knots,
-    )
-    np.testing.assert_array_equal(np.asarray(r_o.score), np.asarray(r_p.score))
-    np.testing.assert_array_equal(np.asarray(r_o.best_a), np.asarray(r_p.best_a))
-    np.testing.assert_array_equal(np.asarray(r_o.best_w), np.asarray(r_p.best_w))
-    ar_o = np.asarray(r_o.arrows)
-    ar_p = np.asarray(r_p.arrows)[:, :I, :]
-    np.testing.assert_array_equal(ar_o, ar_p)
-
-
-@pytest.mark.parametrize("W", [32, 64])
-def test_chunked_guided_pallas_interpret_matches_oracle(rng, W):
-    """CHUNKED guided Pallas kernel (P = 128//W items per row in contiguous
-    W-lane chunks, each with its OWN knot schedule — the de-interleaved
-    narrow-band layout) must be bit-equal to the (S, I) oracle, arrows
-    included (interpret mode on CPU). Items deliberately exceed one row so
-    chunk/row indexing is exercised."""
-    from blasr_tpu.ops.banded_align import clamp_knots_to_shared, make_qoff
-    from blasr_tpu.ops.banded_pallas import _guided_geometry, banded_align_pallas
-
-    P = 128 // W
-    I = 2 * P + 1       # > one packed row, plus a ragged remainder
-    L = 512
-    pad2 = 64
-    T = L + 2 * pad2
-    S = L + T - 1
-    Q = np.full((I, L), 4, np.uint8)
-    Tc = np.full((I, T), 5, np.uint8)
-    qlen = np.zeros(I, np.int32)
-    aq_all = np.zeros((I, 8), np.int32)
-    at_all = np.zeros((I, 8), np.int32)
-    msk = np.zeros((I, 8), bool)
-    for i in range(I):
-        tpl = rng.integers(0, 4, 400).astype(np.uint8)
-        if i % 3 == 0:
-            q = np.concatenate(
-                [tpl[:200], rng.integers(0, 4, 50).astype(np.uint8), tpl[200:]]
-            )
-        elif i % 3 == 1:
-            q = np.concatenate([tpl[:150], tpl[200:]])     # 50-base deletion
-        else:
-            q = tpl.copy()
-        q = _mutate(rng, q, 0.04)
-        Q[i, : len(q)] = q
-        qlen[i] = len(q)
-        Tc[i, pad2 : pad2 + 400] = tpl
-        Tc[i, :pad2] = rng.integers(0, 4, pad2)
-        Tc[i, pad2 + 400 :] = rng.integers(0, 4, T - pad2 - 400)
-        for k in range(8):
-            p = 40 * k + 10
-            qp = p
-            if i % 3 == 0 and p >= 200:
-                qp = p + 50
-            elif i % 3 == 1 and p >= 150:
-                if p < 200:
-                    continue
-                qp = p - 50
-            aq_all[i, k] = qp
-            at_all[i, k] = pad2 + p
-            msk[i, k] = True
-    qoff_shared = make_qoff(L, T, W, pad2)
-    knots = make_qoff_knots(
-        jnp.asarray(aq_all + at_all), jnp.asarray(aq_all - W // 2),
-        jnp.asarray(msk), S, L, W, diag=pad2, num=QOFF_NUM_HALF,
-    )
-    _, mL = _guided_geometry(True, P, W)
-    knots = clamp_knots_to_shared(
-        knots, jnp.asarray(qoff_shared), W, max_dev=mL * W - 8
-    )
-    qoff2 = qoff_from_knots(knots, S)
-    r_o = banded_align(
-        jnp.asarray(Q), jnp.asarray(qlen), jnp.asarray(Tc),
-        jnp.zeros(I, jnp.int32), jnp.full(I, T, jnp.int32), qoff2,
-        scores=SC, with_traceback=True, band_width=W,
-    )
-    r_p = banded_align_pallas(
-        jnp.asarray(Q), jnp.asarray(qlen), jnp.asarray(Tc),
-        jnp.zeros(I, jnp.int32), jnp.full(I, T, jnp.int32),
-        jnp.asarray(qoff_shared),
-        scores=SC, with_traceback=True, band_width=W, interpret=True,
-        qoff_knots=knots,
-    )
-    np.testing.assert_array_equal(np.asarray(r_o.score), np.asarray(r_p.score))
-    np.testing.assert_array_equal(np.asarray(r_o.best_a), np.asarray(r_p.best_a))
-    np.testing.assert_array_equal(np.asarray(r_o.best_w), np.asarray(r_p.best_w))
-    # chunked arrows: (S, R, P*W) with item r*P+p at lanes [W*p, W*(p+1))
-    ar_p = np.asarray(r_p.arrows)
-    Sp, R, LW = ar_p.shape
-    ar_p = ar_p.reshape(Sp, R * P, W)[:, :I, :]
-    np.testing.assert_array_equal(np.asarray(r_o.arrows), ar_p)
-
-    # the knot-schedule walk over the chunked arrow layout
-    from blasr_tpu.ops.traceback_device import walk_arrows_device
-
-    tb_c = walk_arrows_device(
-        r_p.arrows, jnp.asarray(qoff_shared), r_p.best_a, r_p.best_w,
-        r_p.score, jnp.asarray(Q), jnp.asarray(Tc),
-        qoff_knots=knots, pack=P, pack_layout="chunk",
-    )
-    tb_o = walk_arrows_device(
-        r_o.arrows, qoff2[:, 0], r_o.best_a, r_o.best_w, r_o.score,
-        jnp.asarray(Q), jnp.asarray(Tc), qoff_knots=knots,
-    )
-    for f in tb_c._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(tb_c, f)), np.asarray(getattr(tb_o, f)),
-            err_msg=f,
         )

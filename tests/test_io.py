@@ -1,10 +1,10 @@
 import numpy as np
 
-from blasr_tpu.core.encode import codes_to_seq, seq_to_codes
-from blasr_tpu.io.batching import Read, batch_reads, read_records
-from blasr_tpu.io.fasta import read_fasta, write_fasta
-from blasr_tpu.io.fastq import read_fastq, write_fastq
-from blasr_tpu.io.seqdb import load_genome
+from blasr_jax.core.encode import codes_to_seq, seq_to_codes
+from blasr_jax.io.batching import Read, batch_reads, read_records
+from blasr_jax.io.fasta import read_fasta, write_fasta
+from blasr_jax.io.fastq import read_fastq, write_fastq
+from blasr_jax.io.seqdb import load_genome
 
 
 def test_fasta_roundtrip(tmp_path):
@@ -78,8 +78,8 @@ def test_sam_qv_tracks_roundtrip(tmp_path):
     (SAMAlignment.h:280-296 parse, SAMPrinter.h:534-549 emission)."""
     import numpy as np
 
-    from blasr_tpu.core.encode import codes_to_seq, revcomp_codes, seq_to_codes
-    from blasr_tpu.io.sam import read_sam, sam_records_to_reads
+    from blasr_jax.core.encode import codes_to_seq, revcomp_codes, seq_to_codes
+    from blasr_jax.io.sam import read_sam, sam_records_to_reads
 
     rng = np.random.default_rng(21)
     n = 40
@@ -104,9 +104,9 @@ def test_sam_qv_tracks_roundtrip(tmp_path):
     assert np.array_equal(rd.qvs["dt"], dt)
 
     # writer echoes the tags oriented with the emitted SEQ
-    from blasr_tpu.output.sam_writer import format_sam_record
-    from blasr_tpu.pipeline.runner import AlignmentRecord
-    from blasr_tpu.pipeline.traceback import AlignmentPath
+    from blasr_jax.output.sam_writer import format_sam_record
+    from blasr_jax.pipeline.runner import AlignmentRecord
+    from blasr_jax.pipeline.traceback import AlignmentPath
 
     ops = np.full(n, 1, np.uint8)
     path = AlignmentPath(0, n, 0, n, ops, -100, n_match=n)
@@ -129,10 +129,10 @@ def test_samqv_tag_selection(tmp_path):
     (SupplementalQVList::UseQV role)."""
     import numpy as np
 
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.output.sam_writer import format_sam_record
-    from blasr_tpu.pipeline.runner import AlignmentRecord
-    from blasr_tpu.pipeline.traceback import AlignmentPath
+    from blasr_jax.io.batching import Read
+    from blasr_jax.output.sam_writer import format_sam_record
+    from blasr_jax.pipeline.runner import AlignmentRecord
+    from blasr_jax.pipeline.traceback import AlignmentPath
 
     n = 20
     rng = np.random.default_rng(5)
@@ -158,8 +158,8 @@ def test_gzip_inputs(tmp_path):
 
     import numpy as np
 
-    from blasr_tpu.core.encode import codes_to_seq
-    from blasr_tpu.io.batching import read_records
+    from blasr_jax.core.encode import codes_to_seq
+    from blasr_jax.io.batching import read_records
 
     rng = np.random.default_rng(3)
     codes = rng.integers(0, 4, 80).astype(np.uint8)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from blasr_tpu.index.lcp import adjacent_lcp, build_lr_lcp
-from blasr_tpu.index.suffix_array import build_suffix_array
+from blasr_jax.index.lcp import adjacent_lcp, build_lr_lcp
+from blasr_jax.index.suffix_array import build_suffix_array
 
 
 def _brute_lcp(g, i, j):

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from blasr_tpu.ops.mapqv import map_qv_reference
+from blasr_jax.ops.mapqv import map_qv_reference
 
 
 def _mq(scores, q_lo, q_hi, nmm, valid=None):

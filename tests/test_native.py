@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from blasr_tpu import native
-from blasr_tpu.index.suffix_array import build_suffix_array_naive
+from blasr_jax import native
+from blasr_jax.index.suffix_array import build_suffix_array_naive
 
 
 @pytest.fixture(scope="module")
@@ -35,7 +35,7 @@ def test_encode_strip():
 
 
 def test_moves_to_cigar_and_unpack(rngn):
-    from blasr_tpu.pipeline.traceback import AlignmentPath
+    from blasr_jax.pipeline.traceback import AlignmentPath
 
     ops_fwd = rngn.integers(1, 4, 37).astype(np.uint8)
     # pack in END->START order, 2 bits per op
@@ -55,7 +55,7 @@ def test_moves_to_cigar_and_unpack(rngn):
 def test_xeq_cigar_matches_numpy(rngn):
     """Native one-pass =/X CIGAR equals the numpy _xeq_runs construction
     over random op strings, all clip modes."""
-    from blasr_tpu.output.sam_writer import _xeq_runs
+    from blasr_jax.output.sam_writer import _xeq_runs
 
     if not native.available():
         import pytest
@@ -87,9 +87,9 @@ def test_sam_fields_matches_python_reference():
     clip modes, and qual presence."""
     import numpy as np
 
-    from blasr_tpu import native
-    from blasr_tpu.core.encode import codes_to_seq, revcomp_codes
-    from blasr_tpu.output.sam_writer import _xeq_runs
+    from blasr_jax import native
+    from blasr_jax.core.encode import codes_to_seq, revcomp_codes
+    from blasr_jax.output.sam_writer import _xeq_runs
 
     if not native.available():
         import pytest

@@ -8,9 +8,9 @@ to left ++ free-long-gap ++ right; gap close consumes a query base as a
 import numpy as np
 import pytest
 
-from blasr_tpu.ops.banded_align import AlignScores
-from blasr_tpu.ops.onegap import _global_dp, onegap_align
-from blasr_tpu.pipeline.traceback import OP_D, OP_I, OP_M
+from blasr_jax.ops.banded_align import AlignScores
+from blasr_jax.ops.onegap import _global_dp, onegap_align
+from blasr_jax.pipeline.traceback import OP_D, OP_I, OP_M
 
 SC = AlignScores()
 
@@ -125,8 +125,8 @@ def test_no_gap_needed():
 
 
 def test_cli_onegap(tmp_path, capsys):
-    from blasr_tpu.cli.tools import main
-    from blasr_tpu.io.fasta import write_fasta
+    from blasr_jax.cli.tools import main
+    from blasr_jax.io.fasta import write_fasta
 
     rng = np.random.default_rng(3)
     a = rng.integers(0, 4, 80).astype(np.uint8)

@@ -4,12 +4,12 @@ import re
 import numpy as np
 import pytest
 
-from blasr_tpu.core.encode import revcomp_codes
-from blasr_tpu.index.artifacts import build_index_from_arrays
-from blasr_tpu.io.batching import Read
-from blasr_tpu.io.seqdb import SeqDB
-from blasr_tpu.params import MappingParams
-from blasr_tpu.pipeline.runner import run_mapping
+from blasr_jax.core.encode import revcomp_codes
+from blasr_jax.index.artifacts import build_index_from_arrays
+from blasr_jax.io.batching import Read
+from blasr_jax.io.seqdb import SeqDB
+from blasr_jax.params import MappingParams
+from blasr_jax.pipeline.runner import run_mapping
 from tests.conftest import mutate_read
 
 
@@ -37,7 +37,7 @@ CIGAR_RE = re.compile(r"(\d+)([MIDSH])")
 
 
 def test_sam_output_valid(mapped):
-    from blasr_tpu.output.sam_writer import write_sam
+    from blasr_jax.output.sam_writer import write_sam
 
     index, reads, records, unmapped = mapped
     assert len(records) == 6
@@ -69,8 +69,8 @@ def test_sam_output_valid(mapped):
 
 def test_sam_seq_matches_reference_orientation(mapped):
     """Aligned M-run bases in SEQ must mostly equal the reference bases."""
-    from blasr_tpu.output.sam_writer import write_sam
-    from blasr_tpu.core.encode import codes_to_seq
+    from blasr_jax.output.sam_writer import write_sam
+    from blasr_jax.core.encode import codes_to_seq
 
     index, reads, records, unmapped = mapped
     buf = io.StringIO()
@@ -102,7 +102,7 @@ def test_sam_seq_matches_reference_orientation(mapped):
 
 
 def test_m5_m1_m0_formats(mapped):
-    from blasr_tpu.output.verbose import format_m0, format_m1, format_m5
+    from blasr_jax.output.verbose import format_m0, format_m1, format_m5
 
     index, reads, records, _ = mapped
     by_name = {r.name: r for r in reads}

@@ -2,13 +2,13 @@
 
 import numpy as np
 
-from blasr_tpu.core.encode import revcomp_codes
-from blasr_tpu.index.artifacts import build_index_from_arrays
-from blasr_tpu.io.batching import Read
-from blasr_tpu.io.seqdb import SeqDB
-from blasr_tpu.params import MappingParams
-from blasr_tpu.pipeline.piecewise import run_mapping_piecewise, split_long_reads
-from blasr_tpu.sim import simulate_genome
+from blasr_jax.core.encode import revcomp_codes
+from blasr_jax.index.artifacts import build_index_from_arrays
+from blasr_jax.io.batching import Read
+from blasr_jax.io.seqdb import SeqDB
+from blasr_jax.params import MappingParams
+from blasr_jax.pipeline.piecewise import run_mapping_piecewise, split_long_reads
+from blasr_jax.sim import simulate_genome
 
 
 def _setup():

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from blasr_tpu.ops.banded_align import AlignScores, banded_align, make_qoff
+from blasr_jax.ops.banded_align import AlignScores, banded_align, make_qoff
 
 SC = AlignScores()
 
@@ -47,12 +47,12 @@ def test_low_qual_insertion_cheap():
 
 def test_fastq_end_to_end(tmp_path):
     """FASTQ reads map with QV-aware scoring through the full pipeline."""
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.batching import Read, read_records
-    from blasr_tpu.io.seqdb import SeqDB
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import simulate_genome, simulate_reads
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.batching import Read, read_records
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import simulate_genome, simulate_reads
 
     g = simulate_genome(40_000, seed=5, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -63,7 +63,7 @@ def test_fastq_end_to_end(tmp_path):
     fq = tmp_path / "r.fastq"
     with open(fq, "w") as f:
         for r in reads:
-            from blasr_tpu.core.encode import codes_to_seq
+            from blasr_jax.core.encode import codes_to_seq
 
             qual = rng.integers(8, 40, len(r.codes)).astype(np.uint8)
             f.write(f"@{r.name}\n{codes_to_seq(r.codes)}\n+\n")
@@ -114,29 +114,3 @@ def test_dual_stream_ids_scoring():
     # ins stream cheap (5): insertion cost 5 -> 2
     dual3 = (np.full(61, 15, np.uint16)) | (np.uint16(5) << 8)
     assert run(qi, t, dual3) == basei - 3
-
-
-def test_dual_stream_interpret_pallas_equal():
-    from blasr_tpu.ops.banded_pallas import banded_align_pallas
-
-    rng = np.random.default_rng(4)
-    I, L, T = 8, 96, 140
-    Q = rng.integers(0, 4, (I, L)).astype(np.uint8)
-    Tc = rng.integers(0, 4, (I, T)).astype(np.uint8)
-    for i in range(I):
-        Tc[i, 10 : 10 + L - 20] = Q[i, : L - 20]
-    dual = (
-        rng.integers(4, 40, (I, L)).astype(np.uint16)
-        | (rng.integers(4, 40, (I, L)).astype(np.uint16) << 8)
-    )
-    args = (
-        jnp.asarray(Q), jnp.full(I, L, jnp.int32), jnp.asarray(Tc),
-        jnp.zeros(I, jnp.int32), jnp.full(I, T, jnp.int32),
-        jnp.asarray(make_qoff(L, T, 64, (T - L) // 2)),
-    )
-    ref = banded_align(*args, jnp.asarray(dual), with_traceback=True,
-                       band_width=64)
-    got = banded_align_pallas(*args, jnp.asarray(dual), with_traceback=True,
-                              band_width=64, interpret=True)
-    np.testing.assert_array_equal(np.asarray(ref.score), np.asarray(got.score))
-    np.testing.assert_array_equal(np.asarray(ref.best_a), np.asarray(got.best_a))

@@ -5,9 +5,9 @@ import os
 
 import numpy as np
 
-from blasr_tpu.cli.blasr import main as blasr_main
-from blasr_tpu.io.fasta import write_fasta
-from blasr_tpu.sim import simulate_genome, simulate_reads
+from blasr_jax.cli.blasr import main as blasr_main
+from blasr_jax.io.fasta import write_fasta
+from blasr_jax.sim import simulate_genome, simulate_reads
 
 
 def _corpus(tmp_path, n=40):
@@ -48,7 +48,7 @@ def test_resume_continues_where_left(tmp_path):
     seen_batches = 0
     # deterministic batching: first 2 batches = first 16 reads of the
     # 1024-bucket ordering; emulate by keeping records of those reads
-    from blasr_tpu.io.batching import batch_reads, read_records
+    from blasr_jax.io.batching import batch_reads, read_records
 
     reads = read_records(rp)
     batches = list(batch_reads(reads, 8, 1024))
@@ -72,7 +72,7 @@ def _burst_corpus(tmp_path):
     reads, _ = simulate_reads(g, 14, mean_len=800, seed=62)
     reads = list(reads)
     rng = np.random.default_rng(63)
-    from blasr_tpu.io.batching import Read
+    from blasr_jax.io.batching import Read
 
     for i, t0 in enumerate((30_000, 70_000)):
         tpl = g[t0 : t0 + 1200]
@@ -90,11 +90,11 @@ def test_streamed_equals_inmemory_with_escalation(tmp_path):
     consumers kept the inferior pre-escalation record). Record-set
     equality, not byte order: deferred reads are delivered in the final
     on_batch(-1, ...) call after the retries resolve."""
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.io.batching import read_records
-    from blasr_tpu.output.m4 import format_m4
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
+    from blasr_jax.index.artifacts import load_index
+    from blasr_jax.io.batching import read_records
+    from blasr_jax.output.m4 import format_m4
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
 
     rp, gp, _ = _burst_corpus(tmp_path)
     index = load_index(gp, k=13)

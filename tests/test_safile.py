@@ -6,7 +6,7 @@ import subprocess
 import numpy as np
 import pytest
 
-from blasr_tpu.index.safile import (
+from blasr_jax.index.safile import (
     read_sa_file,
     read_sa_lookup,
     reference_order_sa,
@@ -42,7 +42,7 @@ def test_sa_file_roundtrip(tmp_path):
     pl, start, end = lut
     assert pl == 4
     # every bucket's [start, end) rows must carry that prefix
-    from blasr_tpu.core.encode import pack_kmers
+    from blasr_jax.core.encode import pack_kmers
 
     keys, _ = pack_kmers(genome, pl)
     for b in (0, 77, 255):
@@ -66,7 +66,7 @@ def test_sa_file_bad_magic(tmp_path):
 def test_sa_file_matches_reference_binary(tmp_path):
     """Our SA-IS order over an ACGT genome equals the reference binary's
     .sa output, and our writer's bytes parse identically."""
-    from blasr_tpu.index.suffix_array import build_suffix_array
+    from blasr_jax.index.suffix_array import build_suffix_array
 
     fa = str(tmp_path / "g.fa")
     codes = _random_fasta(fa, 20_000, seed=11)
@@ -109,11 +109,11 @@ def test_sa_file_matches_reference_binary(tmp_path):
 def test_build_index_from_reference_order_sa(tmp_path):
     """blasr -sa FILE: a reference-order .sa (short suffixes interleaved)
     loads and maps identically to a freshly built index."""
-    from blasr_tpu.index.artifacts import build_index_from_sa, build_index
-    from blasr_tpu.io.batching import Read
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.output.m4 import format_m4
+    from blasr_jax.index.artifacts import build_index_from_sa, build_index
+    from blasr_jax.io.batching import Read
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.output.m4 import format_m4
 
     fa = str(tmp_path / "g.fa")
     codes = _random_fasta(fa, 30_000, seed=3)

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from blasr_tpu.ops.banded_align import AlignScores
-from blasr_tpu.ops.sdp import OP_D, OP_I, OP_M, global_align_dense, sdp_align
+from blasr_jax.ops.banded_align import AlignScores
+from blasr_jax.ops.sdp import OP_D, OP_I, OP_M, global_align_dense, sdp_align
 
 S = AlignScores()
 
@@ -48,7 +48,7 @@ def test_global_empty_sides():
 def test_native_matches_numpy_fallback():
     import os
 
-    from blasr_tpu import native
+    from blasr_jax import native
 
     if not native.available():
         return
@@ -59,11 +59,11 @@ def test_native_matches_numpy_fallback():
     q = np.insert(q, 70, 2)
     nat = native.global_align(q, t, S.match, S.mismatch, S.n_score,
                               S.insertion, S.deletion)
-    os.environ["BLASR_TPU_NO_NATIVE"] = "1"
+    os.environ["BLASR_JAX_NO_NATIVE"] = "1"
     try:
         # bypass the cached lib by calling the numpy path directly: force
         # max_cells high and monkeypatch native.global_align
-        import blasr_tpu.ops.sdp as sdp_mod
+        import blasr_jax.ops.sdp as sdp_mod
 
         orig = native.global_align
         native.global_align = lambda *a, **k: None
@@ -72,7 +72,7 @@ def test_native_matches_numpy_fallback():
         finally:
             native.global_align = orig
     finally:
-        os.environ.pop("BLASR_TPU_NO_NATIVE", None)
+        os.environ.pop("BLASR_JAX_NO_NATIVE", None)
     ops_nat, score_nat = nat
     assert score_nat == score_np
     assert _consumes(ops_nat, len(q), len(t))
@@ -152,7 +152,7 @@ def test_graph_paper_filter_keeps_colinear_drops_noise():
     off-path seeds drop."""
     import numpy as np
 
-    from blasr_tpu.ops.sdp import graph_paper_filter
+    from blasr_jax.ops.sdp import graph_paper_filter
 
     rng = np.random.default_rng(23)
     # colinear chain: t = q + 1000 +- jitter

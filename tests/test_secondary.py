@@ -11,7 +11,7 @@ pipeline depends on without needing the reference binary.
 import numpy as np
 import pytest
 
-from blasr_tpu.pipeline.secondary_refine import (
+from blasr_jax.pipeline.secondary_refine import (
     _blocks_stats_score,
     blocks_to_ops,
     reference_anchor_list,
@@ -92,8 +92,8 @@ def test_blocks_to_ops_matches_stats_counts(rng):
 
 
 def _mini_index(genome):
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.io.seqdb import SeqDB
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.io.seqdb import SeqDB
 
     seqdb = SeqDB(["ref"], np.array([0, len(genome)], np.int64), ["0" * 32])
     return build_index_from_arrays(genome, seqdb, k=14)

@@ -3,12 +3,12 @@
 import numpy as np
 import jax
 
-from blasr_tpu.index.artifacts import build_index_from_arrays
-from blasr_tpu.io.seqdb import SeqDB
-from blasr_tpu.params import MappingParams
-from blasr_tpu.parallel.sharded import make_shards, run_mapping_sharded
-from blasr_tpu.pipeline.runner import run_mapping
-from blasr_tpu.sim import simulate_genome, simulate_reads
+from blasr_jax.index.artifacts import build_index_from_arrays
+from blasr_jax.io.seqdb import SeqDB
+from blasr_jax.params import MappingParams
+from blasr_jax.parallel.sharded import make_shards, run_mapping_sharded
+from blasr_jax.pipeline.runner import run_mapping
+from blasr_jax.sim import simulate_genome, simulate_reads
 
 
 def test_make_shards_cover_and_overlap():
@@ -53,9 +53,9 @@ def test_sharded_matches_unsharded():
 
 def test_multihost_parts_merge_to_single_host_output(tmp_path):
     """2 simulated hosts' part files merge to the 1-host m4 (order + content)."""
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.output.m4 import format_m4
-    from blasr_tpu.parallel.multihost import (
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.output.m4 import format_m4
+    from blasr_jax.parallel.multihost import (
         host_shard, init_distributed, merge_host_parts, run_mapping_host_part,
     )
 
@@ -93,9 +93,9 @@ def test_multihost_sam_parts_merge(tmp_path):
     to the 1-host write_sam output byte-for-byte."""
     import io
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.output.sam_writer import sam_header, write_sam
-    from blasr_tpu.parallel.multihost import (
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.output.sam_writer import sam_header, write_sam
+    from blasr_jax.parallel.multihost import (
         merge_host_parts, run_mapping_host_part,
     )
 
@@ -118,12 +118,12 @@ def test_multihost_sam_parts_merge(tmp_path):
     merged = str(tmp_path / "merged.sam")
     merge_host_parts(
         prefix, merged, num_processes=2,
-        header_lines=sam_header(seqdb, "blasr_tpu", ["reads.fa"]),
+        header_lines=sam_header(seqdb, "blasr_jax", ["reads.fa"]),
     )
 
     ref_recs, ref_unm = run_mapping(index, reads, params)
     buf = io.StringIO()
-    write_sam(ref_recs, reads, seqdb, buf, program_line="blasr_tpu",
+    write_sam(ref_recs, reads, seqdb, buf, program_line="blasr_jax",
               unmapped=ref_unm, movie_name="reads.fa", genome=index.genome)
     got = open(merged).read()
     assert got == buf.getvalue()
@@ -133,7 +133,7 @@ def test_routed_sharded_equals_broadcast(tmp_path):
     """route=True (canonical-k-mer sketch prefilter) produces the same
     output as broadcasting every read to every shard, and actually prunes
     shard visits on a non-repetitive genome."""
-    from blasr_tpu.parallel.sharded import (
+    from blasr_jax.parallel.sharded import (
         build_shard_sketch, make_shards, route_reads, run_mapping_sharded,
     )
 
@@ -169,7 +169,7 @@ def test_routed_sharded_equals_broadcast(tmp_path):
 def test_sharded_server_serves_repeatedly(tmp_path):
     """ShardedServer: indexes built once, repeated map() calls agree with
     the one-shot path."""
-    from blasr_tpu.parallel.sharded import ShardedServer, run_mapping_sharded
+    from blasr_jax.parallel.sharded import ShardedServer, run_mapping_sharded
 
     g = simulate_genome(90_000, seed=87, repeat_fraction=0.0)
     seqdb = SeqDB(["ref"], np.array([0, len(g)], np.int64), ["0" * 32])
@@ -199,9 +199,9 @@ def test_multihost_verbose_parts_merge(tmp_path, fmt):
     1-host write_verbose output byte-for-byte."""
     import io
 
-    from blasr_tpu.index.artifacts import build_index_from_arrays
-    from blasr_tpu.output.verbose import write_verbose
-    from blasr_tpu.parallel.multihost import (
+    from blasr_jax.index.artifacts import build_index_from_arrays
+    from blasr_jax.output.verbose import write_verbose
+    from blasr_jax.parallel.multihost import (
         merge_host_parts, run_mapping_host_part,
     )
 
@@ -223,3 +223,33 @@ def test_multihost_verbose_parts_merge(tmp_path, fmt):
     buf = io.StringIO()
     write_verbose(ref_recs, reads, index, buf, fmt=int(fmt[1]))
     assert open(merged).read() == buf.getvalue()
+
+
+def test_merge_breaks_score_ties_like_one_index():
+    """Equal-score records of one read from different shards rank as the
+    unsharded selection ranks them: by the start in the strand's reported
+    coordinate space (forward start on strand 0, genome length minus the
+    forward end on strand 1)."""
+    import functools
+
+    from blasr_jax.io.seqdb import SeqDB
+    from blasr_jax.parallel.sharded import _merge_key
+    from blasr_jax.pipeline.runner import AlignmentRecord
+
+    db = SeqDB(["a", "b"], np.array([0, 1000, 3000]), ["0" * 32] * 2)
+
+    def rec(score, strand, contig, ts):
+        return AlignmentRecord(
+            qname="r", tname=db.names[contig], score=score, pct_similarity=90.0,
+            qstrand=0, qstart=0, qend=100, qlength=100, tstrand=strand,
+            tstart=0, tend=0, tlength=0, mapqv=0, contig_index=contig,
+            tstart_fwd=ts, tend_fwd=ts + 100,
+        )
+
+    key = functools.partial(_merge_key, seqdb=db)
+    fwd = [rec(-300, 0, 1, 50), rec(-300, 0, 0, 700), rec(-400, 0, 1, 900)]
+    assert [(r.contig_index, r.tstart_fwd) for r in sorted(fwd, key=key)] == [
+        (1, 900), (0, 700), (1, 50)]
+    rc = [rec(-300, 1, 0, 100), rec(-300, 1, 1, 1500), rec(-300, 1, 0, 800)]
+    assert [(r.contig_index, r.tstart_fwd) for r in sorted(rc, key=key)] == [
+        (1, 1500), (0, 800), (0, 100)]

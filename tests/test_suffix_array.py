@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from blasr_tpu.index.suffix_array import build_suffix_array, build_suffix_array_naive
+from blasr_jax.index.suffix_array import build_suffix_array, build_suffix_array_naive
 
 
 @pytest.mark.parametrize("n", [0, 1, 2, 5, 17, 100, 257])

@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from blasr_tpu.core.encode import codes_to_seq
-from blasr_tpu.io.fasta import write_fasta
-from blasr_tpu.io.sam import read_sam, sam_records_to_reads
-from blasr_tpu.io.seqdb import load_genome
-from blasr_tpu.sim import evolve_sequence, shred_genome, simulate_genome
+from blasr_jax.core.encode import codes_to_seq
+from blasr_jax.io.fasta import write_fasta
+from blasr_jax.io.sam import read_sam, sam_records_to_reads
+from blasr_jax.io.seqdb import load_genome
+from blasr_jax.sim import evolve_sequence, shred_genome, simulate_genome
 
 
 @pytest.fixture(scope="module")
@@ -20,7 +20,7 @@ def genome_fa(tmp_path_factory):
 
 
 def test_count_table(genome_fa):
-    from blasr_tpu.index.artifacts import build_count_table
+    from blasr_jax.index.artifacts import build_count_table
 
     genome, _ = load_genome(genome_fa)
     k = 6
@@ -60,11 +60,11 @@ def test_evolve_rates():
 
 def test_sam_roundtrip(tmp_path, genome_fa):
     """Map shredded reads -> SAM -> re-read as input reads."""
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.io.batching import read_records
-    from blasr_tpu.output.sam_writer import write_sam
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
+    from blasr_jax.index.artifacts import load_index
+    from blasr_jax.io.batching import read_records
+    from blasr_jax.output.sam_writer import write_sam
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
 
     genome, seqdb = load_genome(genome_fa)
     reads_fa = str(tmp_path / "r.fa")
@@ -91,7 +91,7 @@ def test_sam_roundtrip(tmp_path, genome_fa):
 
 
 def test_samtom4_and_filter(tmp_path, genome_fa, capsys):
-    from blasr_tpu.cli.tools import main as tools_main
+    from blasr_jax.cli.tools import main as tools_main
 
     # reuse the SAM from a fresh tiny mapping
     test_sam_roundtrip(tmp_path, genome_fa)
@@ -113,11 +113,11 @@ def test_samtom4_and_filter(tmp_path, genome_fa, capsys):
 def test_alchemy_roundtrip(tmp_path, genome_fa):
     """alchemy reads map back to their true loci; an error model estimated
     from aligned output reproduces plausible rates."""
-    from blasr_tpu.index.artifacts import load_index
-    from blasr_tpu.output.sam_writer import write_sam
-    from blasr_tpu.params import MappingParams
-    from blasr_tpu.pipeline.runner import run_mapping
-    from blasr_tpu.sim import (
+    from blasr_jax.index.artifacts import load_index
+    from blasr_jax.output.sam_writer import write_sam
+    from blasr_jax.params import MappingParams
+    from blasr_jax.pipeline.runner import run_mapping
+    from blasr_jax.sim import (
         ErrorModel, build_model_from_sam, parse_truth, simulate_reads_alchemy,
     )
 
@@ -163,10 +163,10 @@ def test_printgaps_extracts_sv(tmp_path):
     -minGapLength come out as GFF-like lines with the gap sequence."""
     import numpy as np
 
-    from blasr_tpu.cli.tools import main as tools_main
-    from blasr_tpu.core.encode import codes_to_seq
-    from blasr_tpu.io.fasta import write_fasta
-    from blasr_tpu.sim import simulate_genome
+    from blasr_jax.cli.tools import main as tools_main
+    from blasr_jax.core.encode import codes_to_seq
+    from blasr_jax.io.fasta import write_fasta
+    from blasr_jax.sim import simulate_genome
 
     g = simulate_genome(2_000, seed=31)
     gp = str(tmp_path / "g.fa")
@@ -199,10 +199,10 @@ def test_printgaps_extracts_sv(tmp_path):
 def test_printgaps_merge_fuses_split_gap(tmp_path):
     import numpy as np
 
-    from blasr_tpu.cli.tools import main as tools_main
-    from blasr_tpu.core.encode import codes_to_seq
-    from blasr_tpu.io.fasta import write_fasta
-    from blasr_tpu.sim import simulate_genome
+    from blasr_jax.cli.tools import main as tools_main
+    from blasr_jax.core.encode import codes_to_seq
+    from blasr_jax.io.fasta import write_fasta
+    from blasr_jax.sim import simulate_genome
 
     g = simulate_genome(1_500, seed=33)
     gp = str(tmp_path / "g.fa")
@@ -226,10 +226,10 @@ def test_printgaps_merge_fuses_split_gap(tmp_path):
 def test_saquery_saprint(tmp_path, capsys):
     """SA inspector tools (SAQuery.cpp / SAPrinter.cpp roles) on a
     reference-format .sa file."""
-    from blasr_tpu.cli.tools import main as tools_main
-    from blasr_tpu.index.safile import reference_order_sa, write_sa_file
-    from blasr_tpu.io.fasta import write_fasta
-    from blasr_tpu.sim import simulate_genome
+    from blasr_jax.cli.tools import main as tools_main
+    from blasr_jax.index.safile import reference_order_sa, write_sa_file
+    from blasr_jax.io.fasta import write_fasta
+    from blasr_jax.sim import simulate_genome
 
     g = simulate_genome(2_000, seed=41)
     gp = str(tmp_path / "g.fa")
@@ -252,7 +252,7 @@ def test_saquery_saprint(tmp_path, capsys):
     out = capsys.readouterr().out.splitlines()
     assert int(out[0]) == len(g) + 1  # sentinel row included in .sa
     # each printed row: "<pos> <50 bases>" and the bases match the genome
-    from blasr_tpu.core.encode import codes_to_seq
+    from blasr_jax.core.encode import codes_to_seq
 
     for line in out[1:6]:
         pos, seq = line.split()
@@ -263,10 +263,10 @@ def test_svrealign_consolidates_fragmented_gap(tmp_path, capsys):
     """A 200-base deletion fragmented into two gap runs split by a tiny
     match block becomes one clean 200D after realignment
     (SVRealigner.cpp role via onegap_align)."""
-    from blasr_tpu.cli.tools import main as tools_main
-    from blasr_tpu.core.encode import codes_to_seq
-    from blasr_tpu.io.fasta import write_fasta
-    from blasr_tpu.sim import simulate_genome
+    from blasr_jax.cli.tools import main as tools_main
+    from blasr_jax.core.encode import codes_to_seq
+    from blasr_jax.io.fasta import write_fasta
+    from blasr_jax.sim import simulate_genome
 
     g = simulate_genome(2_000, seed=55)
     gp = str(tmp_path / "g.fa")
@@ -305,7 +305,7 @@ def test_maxalignedread_support_track(tmp_path):
     a read get higher support than alignment tails."""
     import struct
 
-    from blasr_tpu.cli.tools import main as tools_main
+    from blasr_jax.cli.tools import main as tools_main
 
     sam = str(tmp_path / "a.sam")
     with open(sam, "w") as f:
@@ -332,9 +332,9 @@ def test_maxalignedread_support_track(tmp_path):
 def test_small_sequtils(tmp_path, capsys):
     """masksequence / exciserepeats / extractseq / revcomp / countnmers
     (sequtils roles)."""
-    from blasr_tpu.cli.tools import main as tools_main
-    from blasr_tpu.core.encode import CODE_N, codes_to_seq, revcomp_codes
-    from blasr_tpu.io.fasta import read_fasta, write_fasta
+    from blasr_jax.cli.tools import main as tools_main
+    from blasr_jax.core.encode import CODE_N, codes_to_seq, revcomp_codes
+    from blasr_jax.io.fasta import read_fasta, write_fasta
 
     rng = np.random.default_rng(13)
     g = rng.integers(0, 4, 500).astype(np.uint8)
@@ -370,8 +370,8 @@ def test_small_sequtils(tmp_path, capsys):
 
 
 def test_longestrepeat(tmp_path, capsys):
-    from blasr_tpu.cli.tools import main as tools_main
-    from blasr_tpu.io.fasta import write_fasta
+    from blasr_jax.cli.tools import main as tools_main
+    from blasr_jax.io.fasta import write_fasta
 
     rng = np.random.default_rng(3)
     g = rng.integers(0, 4, 3000).astype(np.uint8)
@@ -388,9 +388,9 @@ def test_longestrepeat(tmp_path, capsys):
 def test_removeadapters_splits_smrtbell(tmp_path, capsys):
     """SMRTBell read = insert + adapter + RC(insert): splitting at the
     adapter yields two passes (RemoveAdapters.cpp SplitRead role)."""
-    from blasr_tpu.cli.tools import main as tools_main
-    from blasr_tpu.core.encode import revcomp_codes
-    from blasr_tpu.io.fasta import read_fasta, write_fasta
+    from blasr_jax.cli.tools import main as tools_main
+    from blasr_jax.core.encode import revcomp_codes
+    from blasr_jax.io.fasta import read_fasta, write_fasta
 
     rng = np.random.default_rng(8)
     adapter = rng.integers(0, 4, 45).astype(np.uint8)
@@ -412,10 +412,10 @@ def test_removeadapters_splits_smrtbell(tmp_path, capsys):
 
 
 def test_extract_gff_sequences(tmp_path, capsys):
-    from blasr_tpu.cli.tools import main as tools_main
-    from blasr_tpu.io.fasta import write_fasta
-    from blasr_tpu.sim import simulate_genome
-    from blasr_tpu.core.encode import codes_to_seq
+    from blasr_jax.cli.tools import main as tools_main
+    from blasr_jax.io.fasta import write_fasta
+    from blasr_jax.sim import simulate_genome
+    from blasr_jax.core.encode import codes_to_seq
 
     g = simulate_genome(500, seed=9)
     write_fasta(str(tmp_path / "chrZ.fa"), [("chrZ", g)])
@@ -430,7 +430,7 @@ def test_extract_gff_sequences(tmp_path, capsys):
 
 
 def test_match_gtf_exons(tmp_path, capsys):
-    from blasr_tpu.cli.tools import main as tools_main
+    from blasr_jax.cli.tools import main as tools_main
 
     gtf = tmp_path / "a.gtf"
     gtf.write_text(
